@@ -1,23 +1,21 @@
-"""dspfun_tpu — a TPU-native spectral image/video framework.
+"""dspfun_tpu — a spectral image/video framework on JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of 0x09/dspfun
-(a C11 suite of FFTW/ImageMagick/FFmpeg command-line tools for spectral
-analysis of images and video; see /root/reference).
+A ground-up JAX/XLA re-design of the capabilities of 0x09/dspfun (a
+C11 suite of FFTW/ImageMagick/FFmpeg command-line tools for spectral
+analysis of images and video).
 
-Design principles (TPU-first, not a translation):
+Design principles:
 
 * All transforms (DCT-I..IV, DST-I..IV, DFT, WHT, DHT) are expressed as
-  dense basis-matrix contractions executed on the MXU, batched over
-  blocks/channels/frames — not FFT butterflies.  For the sizes these
-  tools use (8..4096) this is the fastest formulation on TPU.
+  dense basis-matrix contractions on the accelerator's matrix units,
+  batched over blocks/channels/frames — not FFT butterflies.
 * The per-coefficient filter chains (spec's gain/range/scale/sign chain,
   motion's bandpass/threshold/quant chain) are pure elementwise jax ops
-  fused by XLA into the surrounding matmuls, with Pallas kernels for the
-  fully-fused blockwise transform->filter->inverse path.
+  fused by XLA into the surrounding matmuls.
 * Precision is a runtime policy (coeff/intermediate dtypes) instead of
   the reference's compile-time COEFF_PRECISION/INTERMEDIATE_PRECISION
   macros (reference include/precision.h:26-57).
-* Multi-chip scaling is first-class: `dspfun_tpu.parallel` shards the
+* Multi-device scaling is first-class: `dspfun_tpu.parallel` shards the
   block grid / pixel grid / time axis of frame cubes over a
   `jax.sharding.Mesh` with shard_map collectives. (The reference is
   single-process; its only concurrency is FFTW pthreads.)
@@ -28,20 +26,11 @@ Toolsets (mirroring the reference's five; reference README.md:12-18):
   applybasis/genbasis/draw — basis-function rendering/application, 12 families
   zoom           — continuous DCT-basis interpolation at arbitrary scale/offset
   scan           — progressive reconstruction by frequency-space scan orders
+
+The backend is JAX's: ``JAX_PLATFORMS=cpu`` runs everything on the host.
 """
 
 __version__ = "0.1.0"
-
-import os as _os
-
-if _os.environ.get("DSPFUN_PLATFORM"):
-    # Select the JAX backend before first device use (the env-var form
-    # JAX_PLATFORMS can be overridden by force-registered plugins;
-    # this programmatic form wins).  E.g. DSPFUN_PLATFORM=cpu for fast
-    # host-side runs of small images.
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["DSPFUN_PLATFORM"])
 
 from dspfun_tpu.core.precision import Precision, get_precision, set_precision
 

@@ -1,16 +1,15 @@
-"""Correctly-rounded f32 matrix contraction on the MXU (Ozaki-style).
+"""Correctly-rounded f32 matrix contraction from exact bf16 digit
+products (Ozaki-style).
 
-The TPU has no native float64, and even `Precision.HIGHEST` f32 matmuls
-(6-pass bfloat16 decomposition) carry ~1.8e-7 error relative to the
-*largest* operand magnitudes.  Whole-image DCT chains amplify that: a
-512x512 spec round trip floors at ~1e-2 absolute, far above the
-BASELINE.md 1e-5 target (reference convention: the intermediate
-precision is *higher* than storage precision — include/precision.h:50,
-default INTERMEDIATE=long double).
+A plain f32 matmul carries ~1e-7 error relative to the *largest*
+operand magnitudes, and whole-image DCT chains amplify that: a 512x512
+spec round trip floors far above the BASELINE.md 1e-5 target
+(reference convention: the intermediate precision is *higher* than
+storage precision — include/precision.h:50, default
+INTERMEDIATE=long double).
 
-This module recovers f64-class contraction accuracy using only exact
-MXU arithmetic — the classic error-free splitting ("Ozaki scheme")
-mapped to the TPU:
+This module recovers f64-class contraction accuracy from exact
+arithmetic alone — the classic error-free splitting ("Ozaki scheme"):
 
 1. scale both operands by powers of two so entries lie in (-1, 1];
 2. split each into B-bit integer digits: ``a = sum_i m_i 2^{-B(i+1)}``
@@ -18,17 +17,15 @@ mapped to the TPU:
    256 are exact in bf16) and every split step is error-free
    (Sterbenz subtraction);
 3. every digit-pair product ``M_i @ X_j`` is then EXACT: bf16 products
-   of B-bit integers fit f32, and the f32 MXU accumulator is exact
-   because ``2B + log2(K) <= 24`` (B is chosen per contraction
-   length K);
-4. the ~18 exact partial products are combined largest-first with
-   TwoSum compensation (error O(eps^2)) and the only rounding in the
-   whole pipeline is the final f32 store.
+   of B-bit integers fit f32, and f32 accumulation is exact because
+   ``2B + log2(K) <= 24`` (B is chosen per contraction length K), so
+   every partial sum is an integer below 2^24;
+4. the exact partial products are combined largest-first with TwoSum
+   compensation (error O(eps^2)) and the only rounding in the whole
+   pipeline is the final f32 store.
 
-Cost: ~18 single-pass bf16 matmuls per contraction vs 6 passes for one
-HIGHEST f32 matmul — ~3x, paid only on the accuracy-critical
-whole-image paths.  Everything is jittable jnp; no Pallas needed
-because the MXU is already doing the exact work.
+Cost: ~18 bf16 matmuls per contraction at the full f64-class tail,
+far fewer with a tolerance budget; everything is jittable jnp.
 """
 
 from __future__ import annotations
@@ -130,7 +127,7 @@ def exact_contract(
 
     ``tol`` engages the tolerance-budgeted mode: the operand digit count
     and digit-pair cutoff are sized to ``budget_bits(tol)`` instead of
-    the full ~60-bit tail — at 1e-5 that is ~5x fewer MXU passes, still
+    the full ~60-bit tail — at 1e-5 that is ~5x fewer matmul passes, still
     with exact products and exact f32 accumulation (truncation is the
     only error, bounded per slice).
     """
@@ -141,12 +138,13 @@ def exact_contract(
     xd, ex = _split_operand_digits(x, B, axis,
                                    x_bits=bits if bits is not None else _X_BITS)
     dx = len(xd)
-    # one batched MXU dispatch computes every digit-pair product at
-    # once — [DA*M, K] @ [K, DX*rest] — ~1.5x the FLOPs of the needed
-    # pairs but a far better MXU shape than ~30 small matmuls
+    # one batched matmul computes every digit-pair product at once —
+    # [DA*M, K] @ [K, DX*rest] — ~1.5x the FLOPs of the needed pairs
+    # but a far better matmul shape than ~30 small ones
     prod_all = jnp.tensordot(
         digits_a.reshape(da * m, k), jnp.stack(xd),
         axes=[[1], [axis + 1]],
+        precision=jax.lax.Precision.DEFAULT,  # bf16 digits: exact products
         preferred_element_type=jnp.float32,
     )  # [DA*M, DX, rest...]
     prod_all = prod_all.reshape((da, m) + prod_all.shape[1:])

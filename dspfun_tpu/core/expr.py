@@ -918,7 +918,7 @@ def parse_expr(source: str, var_names) -> Expr:
 def host_eval_in_jit(expr: Expr, variables: Mapping[str, Any],
                      shape, dtype):
     """Evaluate a stateful Expr inside a jitted computation via an
-    ordered host callback — the TPU mapping of the reference's
+    ordered host callback — the device mapping of the reference's
     host-side per-coefficient av_expr loop (motion/motion.c:670-681):
     the coefficient grid leaves the accelerator for exactly this stage,
     st()/ld()/random() state persists across calls in program order,

@@ -7,25 +7,28 @@ reference include/precision.h:26-57, with per-tool defaults
 (spec/zoom: coeff=double, intermediate=long double; motion/scan:
 coeff=float — reference motion/Makefile:1-2, scan/Makefile:1-2).
 
-On TPU this becomes a *runtime* policy object:
+Here this becomes a *runtime* policy object:
 
 * ``coeff``: dtype of stored arrays and transform outputs
   (f32 default; bf16 for bandwidth-bound paths; f64 on CPU oracles).
 * ``intermediate``: how matmul contractions accumulate:
-    - "f32"   : plain f32 MXU matmuls (preferred_element_type=f32)
+    - "f32"   : plain f32 matmuls at HIGHEST precision
+      (preferred_element_type=f32)
     - "hilo"  : double-float compensated matmuls — the basis matrix is
-      split into hi+lo f32 parts and two HIGHEST MXU matmuls are
-      summed, bounding the basis representation error at ~2^-48.
-      Accumulation still rounds per pass, so whole-image (K >= ~256)
-      chains drift; small-block paths (motion) are exact enough.
+      split into hi+lo f32 parts and two matmuls are summed, bounding
+      the basis representation error at ~2^-48.  Accumulation still
+      rounds in f32, so whole-image (K >= ~256) chains drift;
+      small-block paths (motion) are exact enough.
     - "exact" : correctly-rounded f32 contraction via error-free bf16
       digit splitting (core/exact.py, Ozaki scheme): every partial
-      product and MXU accumulation is exact; the only rounding is the
-      final f32 store.  ~3x hilo's FLOPs; this is the TPU analogue of
-      the reference's "intermediate = long double" convention
-      (include/precision.h:50-57) and what lets whole-image TPU
-      transforms match double-precision FFTW to <=1e-5 (BASELINE.md).
-      Whole-image spec/ispec auto-upgrade hilo->exact at >=256 px.
+      product and accumulation is exact; the only rounding is the
+      final f32 store.  The analogue of the reference's "intermediate
+      = long double" convention (include/precision.h:50-57) and what
+      lets whole-image transforms match double-precision FFTW to
+      <=1e-5 (BASELINE.md).  Whole-image spec/ispec auto-upgrade
+      hilo->exact at >=256 px.
+    - "i8"    : int8 Ozaki digit contraction with exact int32 sums
+      (ops/int8mm.py).
     - "f64"   : true float64 (CPU / x64-enabled only).
 
 Tools take an optional Precision; the module-level default matches the
@@ -42,7 +45,7 @@ import jax.numpy as jnp
 _VALID_INTERMEDIATE = ("f32", "hilo", "exact", "f64", "i8")
 
 # Mapping of the reference's single-letter precision flags (F/D/L,
-# reference include/precision.h:26-35) onto TPU-native policies.
+# reference include/precision.h:26-35) onto runtime policies.
 _LETTER_COEFF = {"F": "float32", "D": "float32", "L": "float32", "B": "bfloat16"}
 _LETTER_INTER = {"F": "f32", "D": "hilo", "L": "hilo"}
 
@@ -65,10 +68,9 @@ class Precision:
       HIGHEST over the raw operand.
 
     ``intermediate="i8"`` runs planned contractions as int8 Ozaki digit
-    matmuls on the MXU's 2x-rate int8 path with exact int32
-    accumulation (ops/int8mm.py): faster than 6-pass HIGHEST *and* more
-    accurate (~9e-8 vs 1.8e-7 relative).  TPU-only fast path (interprets
-    on CPU); unplanned contractions fall back to HIGHEST f32.
+    products with exact int32 accumulation (ops/int8mm.py): ~9e-8
+    relative with 4 digits; unplanned contractions fall back to
+    HIGHEST f32.
 
     ``tol=None`` keeps the maximum-accuracy behaviour of each mode.
     """
@@ -148,13 +150,11 @@ def set_precision(p: Precision) -> None:
     _explicit = True
 
 
-def _on_tpu() -> bool:
+def _on_accelerator() -> bool:
+    """True when JAX's default backend is not the CPU."""
     import jax  # noqa: PLC0415
 
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # noqa: BLE001
-        return False
+    return jax.default_backend() != "cpu"
 
 
 def tool_default(tool: str) -> Precision:
@@ -168,14 +168,13 @@ def tool_default(tool: str) -> Precision:
     * spec/ispec: hilo, auto-upgraded to the error-free exact
       contraction at >=256 px (models/spec_pipeline) — the D/L
       whole-image accuracy class.
-    * zoom on TPU: the tail-corrected deep-i8 contraction (~1e-7
-      relative with exact accumulation — the D/L class at better than
-      HIGHEST speed); on CPU the i8 kernels only interpret, so the
-      hilo/HIGHEST einsum stays the default.
+    * zoom on an accelerator: the deep (4-digit) i8 contraction
+      (~1e-7 relative with exact accumulation — the D/L class); on the
+      CPU, where int8 products buy nothing, hilo.
     * applybasis/genbasis/draw: hilo (small closed-form bases; HIGHEST
       einsums already sit at the f32 rounding floor).
     """
-    if tool == "zoom" and _on_tpu():
+    if tool == "zoom" and _on_accelerator():
         return Precision(coeff="float32", intermediate="i8")
     return Precision()
 

@@ -1,18 +1,17 @@
-"""ND separable spectral transforms as MXU matrix contractions.
+"""ND separable spectral transforms as dense matrix contractions.
 
 The reference runs FFTW r2r plans (REDFT10/REDFT01) over whole images
-(spec/ispec/zoom/scan) and over 3-D blocks (motion).  On TPU the
-idiomatic fast path for the sizes involved is a dense basis-matrix
-contraction on the MXU, batched over channels/blocks/frames; XLA fuses
-the surrounding elementwise filter chains into the matmuls.
+(spec/ispec/zoom/scan) and over 3-D blocks (motion).  Here every
+transform is a dense basis-matrix contraction, batched over
+channels/blocks/frames; XLA fuses the surrounding elementwise filter
+chains into the matmuls.
 
 Precision: the `hilo` intermediate mode implements double-float
 compensated contraction — the float64 basis matrix is split into
-hi + lo float32 parts and two HIGHEST-precision matmuls are summed.
-For float32 inputs (exactly representable) this bounds the basis
-representation error at ~2^-48, recovering the reference's
-"intermediate precision > coeff precision" behaviour
-(reference include/precision.h:26-57) while staying on the MXU.
+hi + lo float32 parts and the two matmuls are summed.  For float32
+inputs (exactly representable) this bounds the basis representation
+error at ~2^-48, recovering the reference's "intermediate precision >
+coeff precision" behaviour (reference include/precision.h:26-57).
 
 Also provides the dspfun "uniform range" normalisation grids:
 sqrt(2)^(#nonzero indices) per coefficient — reference
@@ -58,7 +57,7 @@ def split_hilo(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 class AxisPlan(NamedTuple):
     """A planned 1-D transform: basis matrix array(s).
 
-    The TPU analogue of an FFTW plan (reference motion/motion.c:518-557
+    The analogue of an FFTW plan (reference motion/motion.c:518-557
     plans + wisdom): materialised once per (size, kind, precision).
     Held as *host* numpy arrays so a cached plan is safe to use both as
     a jit argument (lives in HBM, not inlined) and inside jit/shard_map
@@ -97,17 +96,17 @@ def plan_matrix(m: np.ndarray, precision: Precision | None = None) -> AxisPlan:
         )
 
         # tight (or unset) accuracy budgets carry a 4th digit plane:
-        # the deep 10-product kernel lands ~1e-8-class relative
+        # the deep 10-product form lands ~1e-8-class relative
         # (~2^-28 truncation, exact int32 accumulation) at ~1.7x the
-        # 3-digit kernel's MXU work
+        # 3-digit form's int8 work
         ndig = 4 if p.tol is None or p.tol <= I8_DEEP_TOL else 3
-        if i8_feasible(m.shape[0], m.shape[1], ndig):
+        if i8_feasible(m.shape[1], ndig):
             digits, row_scale = split_matrix_i8(m, ndig)
             return AxisPlan(m.astype(np.float32), None, digits, row_scale,
                             rowsum)
-        # contraction too long for the kernel's exact-int32 bound or
-        # VMEM working set: the bf16-digit exact mode is the same
-        # accuracy class without either limit
+        # contraction too long for the exact-int32 group sums: the
+        # bf16-digit exact mode is the same accuracy class without
+        # that limit
         from dspfun_tpu.core.exact import split_matrix_digits  # noqa: PLC0415
 
         digits, scale = split_matrix_digits(m, tol=p.tol)
@@ -150,9 +149,9 @@ def apply_plan(
 
     ``split`` (advisory; engages only when ``precision.tol`` is set on
     an f32/hilo policy) names the rank-1 component that dominates the
-    operand's dynamic range, letting the bulk contraction run as 3-pass
-    bf16 (HIGH) instead of 6-pass HIGHEST while the dominant component
-    is applied analytically with one rounding:
+    operand's dynamic range: the bulk contraction then sees only the
+    balanced residual while the dominant component is applied
+    analytically with one rounding:
 
     * ``"mean"`` — for forward DCTs: ``M@x == M@(x-mu) + mu*rowsum(M)``
       for any mu; rowsum(DCT-II) is exactly [2N, 0, ...] so the image
@@ -161,11 +160,9 @@ def apply_plan(
       and DCT-III column 0 is exactly ones, so the DC coefficient is a
       plain broadcast add.
 
-    The split also composes with the exact-int8 digit mode (which keeps
-    6-pass HIGHEST-class accuracy at ~half the cost): the balanced
+    The split also composes with the int8 digit mode: the balanced
     residual keeps each contraction slice's digit scaling tight around
-    the signal instead of the DC — the fused 4K chain lands at ~2e-6
-    vs f64 because of it.
+    the signal instead of the DC.
     """
     p = precision or get_precision()
     axis = axis % x.ndim
@@ -203,9 +200,9 @@ def apply_plan(
 
     if (plan.digits is not None and jnp.asarray(plan.digits).dtype == jnp.int8
             and x.shape[axis] < 256):
-        # tiny contractions (blockwise DCTs, K <= 16) would pad K to
-        # the 128-lane tile and waste the int8 rate; 6-pass HIGHEST on
-        # the f32 matrix is both faster and more accurate there
+        # tiny contractions (blockwise DCTs, K <= 16) gain nothing from
+        # the int8 digit products; HIGHEST on the f32 matrix is both
+        # faster and more accurate there
         y = tdot(plan.hi, x.astype(jnp.float32))
     elif plan.digits is not None and jnp.asarray(plan.digits).dtype == jnp.int8:
         from dspfun_tpu.ops.int8mm import i8_contract  # noqa: PLC0415
@@ -232,12 +229,9 @@ def apply_plan(
           and p.intermediate in ("f32", "hilo")):
         xf = x.astype(jnp.float32)
         resid, piv, vec_hi, vec_lo = rank1_split(xf)
-        # balanced residual: 3-pass bf16 floors at ~2^-17 relative
-        # (measured 1.5e-5 through a chained 4K transform pair), so it
-        # serves only loose budgets; tighter ones keep 6-pass HIGHEST
-        prec = (jax.lax.Precision.HIGH if p.tol >= 2e-5
-                else jax.lax.Precision.HIGHEST)
-        y = tdot(plan.hi, resid, prec)
+        # HIGHEST even for loose budgets: HIGH runs in TF32 on the GPU
+        # and misses a 2e-5 budget through a chained 4K transform pair
+        y = tdot(plan.hi, resid)
         if plan.lo is not None:
             y = y + tdot(plan.lo, resid, jax.lax.Precision.DEFAULT)
         y = y + piv * vec_hi
@@ -246,10 +240,9 @@ def apply_plan(
     elif p.intermediate == "hilo" and plan.lo is not None:
         xf = x.astype(jnp.float32)
         # the lo compensation term is ~2^-24 of the main term, so one
-        # DEFAULT (single-pass bf16) matmul suffices: its ~4e-3 relative
-        # error lands near 2^-32 of the result, far below the HIGHEST
-        # accumulation floor (~1.8e-7) — and saves 5 of hilo's 12 bf16
-        # MXU passes
+        # DEFAULT matmul (TF32 on the GPU, ~2^-11 relative) suffices: its
+        # error lands near 2^-35 of the result, far below the f32
+        # accumulation floor
         y = tdot(plan.hi, xf) + tdot(plan.lo, xf,
                                      prec=jax.lax.Precision.DEFAULT)
     else:

@@ -27,8 +27,9 @@ _ENC_THRESH = _DEC_THRESH / 12.92
 def _pow_5_12(x, xp):
     """``x ** (5/12)`` (= 1/2.4) to ~2 ulp in f32.
 
-    TPU's f32 ``pow`` (exp2/log2 VPU approximations) carries ~7e-6
-    relative error — the accuracy floor of every post-OETF comparison.
+    A device f32 ``pow`` built from exp2/log2 approximations can carry
+    errors of many ulp — the accuracy floor of every post-OETF
+    comparison.
     One Newton polish of the pow guess against ``y^12 = x^5`` (both
     sides exact-rational multiply chains) squares that error below the
     f32 ulp: the residual (y^12 - x^5)/y^12 is ~12*err, carrying ~4 ulp

@@ -140,9 +140,7 @@ def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageD
     behaviour (MagickTransformImageColorspace(RGBColorspace),
     reference spec/spec.c:57).
     """
-    from PIL import Image  # noqa: PLC0415
-
-    from dspfun_tpu.io import png16 as _png16  # noqa: PLC0415
+    from dspfun_tpu.io import png16 as _png  # noqa: PLC0415
 
     _, path = _split_spec(spec)
     if path == "-":
@@ -151,11 +149,12 @@ def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageD
         with open(path, "rb") as f:
             data = f.read()
 
-    if _png16.sniff_png16(data):
-        # PIL truncates 16-bit color PNGs to 8 bits; decode natively
-        arr16, properties = _png16.read_png16(data)
-        depth = 16
-        fa = arr16.astype(np.float64) / 65535.0
+    if _png.sniff_png(data):
+        # 8/16-bit gray/RGB(A) PNG: native (Pillow truncates 16-bit
+        # color PNGs to 8 bits, and the main path must not need it)
+        arr, properties = _png.read_png(data)
+        depth = 8 * arr.dtype.itemsize
+        fa = arr.astype(np.float64) / float((1 << depth) - 1)
         h, w, nch = fa.shape
         rgba = np.zeros((h, w, 4), dtype=np.float64)
         rgba[..., 3] = 1.0
@@ -167,6 +166,8 @@ def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageD
         else:
             rgba[..., :nch] = fa
     else:
+        from PIL import Image  # noqa: PLC0415
+
         img = Image.open(_io.BytesIO(data))
         properties = dict(getattr(img, "text", {}) or {})
         mode = img.mode
@@ -212,9 +213,6 @@ def write_image(
     tty, matching the reference tools' isatty behaviour
     (spec/spec.c:41-42).
     """
-    from PIL import Image  # noqa: PLC0415
-    from PIL.PngImagePlugin import PngInfo  # noqa: PLC0415
-
     if spec is None:
         spec = "sixel:-" if sys.stdout.isatty() else "-"
     fmt, path = _split_spec(spec)
@@ -237,58 +235,50 @@ def write_image(
                 stream.close()
         return
 
-    if depth == 16:
-        fmt16 = (fmt or (path.rsplit(".", 1)[-1] if "." in path else "png")).lower()
-        if len(channels) == 1:
-            # uint16 infers mode I;16 (explicit mode= is deprecated)
-            img = Image.fromarray(quant[..., 0].astype(np.uint16))
-        elif fmt16 == "png":
-            # PIL cannot write 16-bit color PNGs; use the raw encoder
-            # (reference depth semantics: MagickWand Q16 stores spectra
-            # at 16 bits, spec/spec.c:141-155)
-            from dspfun_tpu.io import png16 as _png16  # noqa: PLC0415
-
-            nch = 4 if "A" in channels.upper() else 3
-            arr16 = quant[..., :nch].astype(np.uint16)
-            if arr16.shape[2] < 3:  # replicate gray to RGB
-                arr16 = np.repeat(arr16[..., :1], 3, axis=-1)
-            if path == "-":
-                _png16.write_png16(sys.stdout.buffer, arr16, properties)
-                sys.stdout.buffer.flush()
-            else:
-                _png16.write_png16(path, arr16, properties)
-            return
-        else:
-            raise ValueError(f"16-bit output requires PNG (got {fmt16!r})")
-    else:
-        has_alpha = "A" in channels.upper()
-        arr8 = quant.astype(np.uint8)
-        if has_alpha:
-            img = Image.fromarray(arr8, mode="RGBA")
-        else:
-            img = Image.fromarray(arr8[..., :3], mode="RGB")
-
     fmt_name = (fmt or (path.rsplit(".", 1)[-1] if "." in path else "png")).upper()
     if fmt_name in ("JPG",):
         fmt_name = "JPEG"
     if path == "-":
         fmt_name = fmt_name if fmt else "PNG"
+    has_alpha = "A" in channels.upper()
 
-    kwargs = {}
     if fmt_name == "PNG":
-        info = PngInfo()
-        for k, v in (properties or {}).items():
-            info.add_text(str(k), str(v))
-        kwargs["pnginfo"] = info
-    elif properties:
-        # Non-PNG formats drop string properties, as with ImageMagick
-        # for most formats.
-        pass
+        # native writer: no Pillow on the main path, and 16-bit color
+        # (reference depth semantics: MagickWand Q16 stores spectra at
+        # 16 bits, spec/spec.c:141-155)
+        from dspfun_tpu.io import png16 as _png  # noqa: PLC0415
 
+        if depth == 16 and len(channels) == 1:
+            arr = quant[..., :1].astype(np.uint16)
+        else:
+            arr = quant[..., :4 if has_alpha else 3].astype(
+                np.uint16 if depth == 16 else np.uint8)
+        if path == "-":
+            _png.write_png(sys.stdout.buffer, arr, properties)
+            sys.stdout.buffer.flush()
+        else:
+            _png.write_png(path, arr, properties)
+        return
+
+    from PIL import Image  # noqa: PLC0415
+
+    if depth == 16:
+        if len(channels) != 1:
+            raise ValueError(f"16-bit output requires PNG (got {fmt_name.lower()!r})")
+        # uint16 infers mode I;16 (explicit mode= is deprecated)
+        img = Image.fromarray(quant[..., 0].astype(np.uint16))
+    else:
+        arr8 = quant.astype(np.uint8)
+        if has_alpha:
+            img = Image.fromarray(arr8, mode="RGBA")
+        else:
+            img = Image.fromarray(arr8[..., :3], mode="RGB")
+    # non-PNG formats drop string properties, as ImageMagick does for
+    # most formats
     if path == "-":
         buf = _io.BytesIO()
-        img.save(buf, format=fmt_name, **kwargs)
+        img.save(buf, format=fmt_name)
         sys.stdout.buffer.write(buf.getvalue())
         sys.stdout.buffer.flush()
     else:
-        img.save(path, format=fmt_name, **kwargs)
+        img.save(path, format=fmt_name)

@@ -452,7 +452,7 @@ class MkvMuxer:
         self._seg_start = s.tell() if seekable else None
         # Info: 1 ms timestamp scale + muxer tags + Duration placeholder
         info = (_el(_TIMESTAMP_SCALE, _uint(1_000_000))
-                + _el(0x4D80, b"dspfun-tpu") + _el(0x5741, b"dspfun-tpu"))
+                + _el(0x4D80, b"dspfun") + _el(0x5741, b"dspfun"))
         import struct
 
         if seekable:

@@ -97,6 +97,10 @@ def _load() -> ctypes.CDLL | None:
                                         c.c_int64, c.c_float]
         lib.dspio_f32_to_u8.argtypes = [P(c.c_float), P(c.c_uint8),
                                         c.c_int64, c.c_float]
+        lib.dspio_png_unfilter.restype = c.c_int
+        lib.dspio_png_unfilter.argtypes = [P(c.c_uint8), c.c_int64,
+                                           c.c_int64, c.c_int64,
+                                           P(c.c_uint8)]
         _LIB = lib
         return _LIB
 
@@ -118,6 +122,23 @@ def dither_fs_batch(img: np.ndarray) -> np.ndarray:
         a.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, h, w
     )
     return a
+
+
+def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Reverse PNG scanline filtering (native); ``raw`` is the inflated
+    [h, 1 + stride] uint8 scanlines.  Returns [h, stride] uint8."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native dspio unavailable")
+    src = np.ascontiguousarray(raw, dtype=np.uint8)
+    if src.shape != (h, stride + 1):
+        raise ValueError(f"scanlines {src.shape} != {(h, stride + 1)}")
+    out = np.empty((h, stride), dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if lib.dspio_png_unfilter(src.ctypes.data_as(u8p), h, stride, bpp,
+                              out.ctypes.data_as(u8p)) != 0:
+        raise ValueError("bad PNG filter type")
+    return out
 
 
 class NativeVideoReader:

@@ -1,20 +1,21 @@
-"""Raw 16-bit PNG codec (zlib + struct).
+"""Native PNG codec (zlib + struct) for 8- and 16-bit stills.
 
-MagickWand writes >=16-bit PNGs when the image depth warrants
-(reference spec/spec.c:141-155 stores spectra at MagickWand's default
-depth); PIL only round-trips 16-bit *grayscale* and silently truncates
-16-bit RGB to 8 bits on read.  High-depth spectra are the whole point
-of `spec -t flat` editing workflows, so this module implements the
-small PNG subset needed natively:
+The tools' main path reads and writes PNG without Pillow: spec stores
+spectra at 16 bits (MagickWand's Q16 depth, reference
+spec/spec.c:141-155), which Pillow truncates to 8 bits on read for
+color images, and 8-bit stills are the usual input.  This module
+implements the PNG subset those need:
 
-* write: bit depth 16, color type 2 (RGB) / 6 (RGBA), filter 0, tEXt
-  chunks for string properties (where spec smuggles the "DC" header);
-* read: bit depth 16, color types 0/2/4/6, all five scanline filters,
-  non-interlaced.
+* write: bit depth 8 or 16, color type 0 (gray) / 4 (gray+alpha) /
+  2 (RGB) / 6 (RGBA), filter 0, tEXt chunks for string properties
+  (where spec smuggles the "DC" header);
+* read: bit depth 8 or 16, color types 0/2/4/6, all five scanline
+  filters, non-interlaced.  Palette, sub-byte and interlaced PNGs are
+  left to Pillow (``sniff_png`` is False for them).
 
-Filters Sub/Up unfilter vectorised (per-byte-lane cumsum / row add);
-Average/Paeth fall back to a per-pixel loop on the affected rows (our
-own writer never emits them).
+Unfiltering runs in the native host library when it is built
+(native/dspio.cpp); the Python fallback vectorises None/Sub/Up per row
+and loops per pixel on Average/Paeth rows (our own writer emits none).
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ import zlib
 
 import numpy as np
 
-__all__ = ["write_png16", "read_png16", "sniff_png16"]
+__all__ = ["write_png", "read_png", "sniff_png"]
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOR = {c: t for t, c in _CHANNELS.items()}
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:
@@ -35,21 +37,25 @@ def _chunk(typ: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(typ + data) & 0xFFFFFFFF))
 
 
-def write_png16(path_or_stream, arr: np.ndarray,
-                properties: dict | None = None) -> None:
-    """Write a [H, W, 3|4] uint16 array as a 16-bit PNG."""
+def write_png(path_or_stream, arr: np.ndarray,
+              properties: dict | None = None) -> None:
+    """Write a [H, W, 1|2|3|4] uint8 or uint16 array as a PNG of that
+    bit depth (gray, gray+alpha, RGB or RGBA)."""
     arr = np.asarray(arr)
-    if arr.dtype != np.uint16 or arr.ndim != 3 or arr.shape[2] not in (3, 4):
-        raise ValueError("write_png16 wants [H, W, 3|4] uint16")
+    if (arr.dtype not in (np.uint8, np.uint16) or arr.ndim != 3
+            or arr.shape[2] not in _COLOR):
+        raise ValueError("write_png wants [H, W, 1|2|3|4] uint8 or uint16")
     h, w, c = arr.shape
-    color = 2 if c == 3 else 6
-    big = arr.astype(">u2")
-    raw = b"".join(b"\x00" + big[y].tobytes() for y in range(h))
-    out = [_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, color, 0, 0, 0))]
+    depth = 8 * arr.dtype.itemsize
+    rows = arr.astype(">u2") if depth == 16 else arr
+    raw = np.zeros((h, 1 + w * c * arr.dtype.itemsize), np.uint8)
+    raw[:, 1:] = rows.reshape(h, -1).view(np.uint8)
+    out = [_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                             _COLOR[c], 0, 0, 0))]
     for k, v in (properties or {}).items():
         out.append(_chunk(b"tEXt", str(k).encode("latin-1") + b"\x00"
                           + str(v).encode("latin-1")))
-    out.append(_chunk(b"IDAT", zlib.compress(raw, 6)))
+    out.append(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
     out.append(_chunk(b"IEND", b""))
     data = b"".join(out)
     if hasattr(path_or_stream, "write"):
@@ -59,18 +65,18 @@ def write_png16(path_or_stream, arr: np.ndarray,
             f.write(data)
 
 
-def sniff_png16(data: bytes) -> bool:
-    """True when ``data`` is a non-interlaced 16-bit PNG this module
-    should decode (PIL truncates 16-bit color PNGs)."""
+def sniff_png(data: bytes) -> bool:
+    """True when ``data`` is a non-interlaced 8- or 16-bit gray/RGB(A)
+    PNG this module decodes."""
     if not data.startswith(_SIG) or len(data) < 33:
         return False
     w, h, depth, color, comp, filt, interlace = struct.unpack(
         ">IIBBBBB", data[16:29]
     )
-    return depth == 16 and color in _CHANNELS and interlace == 0
+    return depth in (8, 16) and color in _CHANNELS and interlace == 0
 
 
-def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+def _unfilter_py(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     """Reverse PNG scanline filtering; raw is [h, 1 + stride] uint8."""
     out = np.zeros((h, stride), dtype=np.uint8)
     prev = np.zeros(stride, dtype=np.uint8)
@@ -117,8 +123,17 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png16(data: bytes) -> tuple[np.ndarray, dict]:
-    """Decode a 16-bit PNG -> ([H, W, C] uint16, text properties)."""
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    from dspfun_tpu.io import native  # noqa: PLC0415
+
+    if native.available():
+        return native.png_unfilter(raw, h, stride, bpp)
+    return _unfilter_py(raw, h, stride, bpp)
+
+
+def read_png(data: bytes) -> tuple[np.ndarray, dict]:
+    """Decode an 8- or 16-bit PNG -> ([H, W, C] uint8 or uint16, text
+    properties)."""
     if not data.startswith(_SIG):
         raise ValueError("not a PNG")
     pos = 8
@@ -133,8 +148,9 @@ def read_png16(data: bytes) -> tuple[np.ndarray, dict]:
             w, h, depth, color, _comp, _filt, interlace = struct.unpack(
                 ">IIBBBBB", body
             )
-            if depth != 16 or color not in _CHANNELS or interlace != 0:
-                raise ValueError("read_png16 handles non-interlaced 16-bit only")
+            if depth not in (8, 16) or color not in _CHANNELS or interlace:
+                raise ValueError("read_png handles non-interlaced 8/16-bit "
+                                 "gray/RGB(A) only")
         elif typ == b"tEXt":
             k, _, v = body.partition(b"\x00")
             props[k.decode("latin-1")] = v.decode("latin-1")
@@ -145,10 +161,13 @@ def read_png16(data: bytes) -> tuple[np.ndarray, dict]:
     if w is None:
         raise ValueError("missing IHDR")
     nch = _CHANNELS[color]
-    stride = w * nch * 2
+    nbytes = depth // 8
+    stride = w * nch * nbytes
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
     raw = raw.reshape(h, 1 + stride)
-    flat = _unfilter(raw, h, stride, bpp=nch * 2)
+    flat = _unfilter(raw, h, stride, bpp=nch * nbytes)
+    if depth == 8:
+        return flat.reshape(h, w, nch), props
     arr = flat.reshape(h, w, nch, 2)
     out = (arr[..., 0].astype(np.uint16) << 8) | arr[..., 1]
     return out, props

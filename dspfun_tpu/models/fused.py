@@ -2,7 +2,7 @@
 
 These are the jittable end-to-end "models" of the framework: whole
 transform -> coefficient filter -> inverse chains in a single jit so
-XLA fuses the elementwise filter work into the MXU contractions
+XLA fuses the elementwise filter work into the matrix contractions
 (the BASELINE.json north star: fuse blockwise transform + filter +
 inverse per tool).
 """

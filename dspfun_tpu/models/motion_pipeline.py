@@ -7,9 +7,9 @@ expression eval, brick-wall bandpass, threshold, preserve-DC, quantize),
 inverse DCT at the scaled dims, and pel mapping with optional
 Floyd-Steinberg dithering.
 
-TPU formulation: all blocks of a slab are processed in ONE jitted call
-per plane — the block grid becomes a batch axis, the 3-D DCTs are six
-batched MXU matmuls, and the whole filter chain is elementwise work XLA
+Accelerator formulation: all blocks of a slab are processed in ONE
+jitted call per plane — the block grid becomes a batch axis, the 3-D
+DCTs are six batched matmuls, and the whole filter chain is elementwise work XLA
 fuses between them.  Region effects (uniform renorm, bandpass, active
 windows) become precomputed mask arrays over the [md, mh, mw] buffer,
 matching the reference's strided-buffer semantics exactly (including
@@ -54,12 +54,19 @@ PRESERVE_DCTYPES = ("dc", "grey")
 
 _SQRT2 = math.sqrt(2.0)
 
-# Which fused fast-path implementation the most recent filter_blocks
-# *trace* selected ("pallas-kron" | "xla-sep" | "xla-kron") — set at
-# trace time, so it reflects the first call per (geometry, params)
-# config.  Used by benchmarks/tests to assert the
-# intended kernel engages.
+# Which fused fast-path form the most recent filter_blocks *trace*
+# selected ("i8-kron" | "xla-sep" | "xla-kron"; see filter_blocks) —
+# set at trace time, so it reflects the first call per (geometry,
+# params) config.  Benchmarks and tests read it to assert the intended
+# form engages.
 LAST_FAST_PATH: str | None = None
+
+# largest block volume whose fast path folds the whole 3-D DCT into two
+# dense [V, V] matmuls; larger blocks contract axis by axis
+_XLA_KRON_MAX_VOL = 1024
+# maybe_kron_plans builds the full [V, V] float64 Kronecker DCT on the
+# host (V^2 * 8 bytes: 128 MiB at 4096) before slicing the support
+_KRON_HOST_MAX_VOL = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,7 +308,7 @@ def maybe_kron_plans(g: PlaneGeometry, params: MotionParams,
     dropped rows are multiplied by zero), the whole-chain analogue of
     scan's pruned IDCT (reference scan/scan.c:20-41) in the blockwise
     domain (VERDICT r3 item 3).  The two contractions run the int8
-    digit kernels (K = V >= 2048 rides the MXU's 2x int8 rate).
+    digit contractions (ops/int8mm.py).
 
     Pass the result as ``plans[2]`` into :func:`filter_blocks` (device
     arrays; the FFTW-plan analogue).
@@ -311,25 +318,18 @@ def maybe_kron_plans(g: PlaneGeometry, params: MotionParams,
 
     p = params
     vol = g.minbuf.volume()
-    if not _fast_eligible(g, p) or vol <= 1024:
+    if (not _fast_eligible(g, p)
+            or not _XLA_KRON_MAX_VOL < vol <= _KRON_HOST_MAX_VOL):
         return None
-    if not allow_cpu and jax.default_backend() in ("cpu",):
-        return None  # the int8 kernels only interpret off-TPU
+    if not allow_cpu and jax.default_backend() == "cpu":
+        # int8 digit products pay only where the device has int8
+        # matrix units; the CPU keeps the float separable form
+        return None
     dims3 = (g.block.d, g.block.h, g.block.w)
     uf = _uniform_factor(*dims3).reshape(-1)
     bpm = _bandpass_mult(g, p.boost, p.damp).reshape(-1)
     support = np.flatnonzero(bpm != 0.0)
     if support.size > vol * max_support_frac:
-        return None
-    from dspfun_tpu.ops.int8mm import i8_feasible  # noqa: PLC0415
-
-    # both folded contractions must fit the int8 kernels' exact-int32
-    # and VMEM domain ([S, V] contracts K=V, [V, S] contracts K=S);
-    # otherwise plan_matrix would silently fall back to bf16 digits,
-    # which filter_blocks' i8_contract branch cannot consume — probing
-    # first also skips the big [V, V] host kron build for large V
-    if not (i8_feasible(support.size, vol) and
-            i8_feasible(vol, support.size)):
         return None
     prec = Precision(coeff="float32", intermediate="i8", tol=1e-5)
     k2 = kron_dct_matrix(dims3, "dct2")[support, :] \
@@ -337,7 +337,10 @@ def maybe_kron_plans(g: PlaneGeometry, params: MotionParams,
     k3 = (kron_dct_matrix(dims3, "dct3")[:, support] / (8.0 * vol)) \
         * (1.0 / uf)[None, support]
     p2, p3 = plan_matrix(k2, prec), plan_matrix(k3, prec)
-    assert np.asarray(p2.digits).dtype == np.int8  # guarded by the probe
+    # K <= V <= _KRON_HOST_MAX_VOL keeps both contractions far inside
+    # the int8 form's exact-int32 bound, so plan_matrix never falls
+    # back to bf16 digits (which the i8-kron branch cannot consume)
+    assert np.asarray(p2.digits).dtype == np.int8
     assert np.asarray(p3.digits).dtype == np.int8
     return p2, p3
 
@@ -380,31 +383,16 @@ def filter_blocks(
     # ------------------------------------------------------------------
     # Fast path: when the chain is two matmuls around a pointwise middle
     # (no spectrogram codecs, expression, top-N, preserve-DC, dither,
-    # trc, quant stats, or block resize) and the block is small, fold
-    # everything into Kronecker matrices and run the fused VMEM-resident
-    # kernel — one HBM read + one write per block.
+    # trc, quant stats, or block resize), the filter folds into the
+    # transform matrices and the chain runs in one of three forms:
+    # - pruned i8 Kronecker plans given (maybe_kron_plans): two int8
+    #   digit contractions over the pass-band support ("i8-kron");
+    # - V <= _XLA_KRON_MAX_VOL: two HIGHEST f32 matmuls with the folded
+    #   [V, V] Kronecker matrices ("xla-kron");
+    # - otherwise the separable per-axis contractions ("xla-sep").
     # ------------------------------------------------------------------
     vol = g.minbuf.volume()
-    fast = _fast_eligible(g, p)
-    kron_plans = plans[2] if len(plans) >= 3 else None
-    if fast:
-        from dspfun_tpu.ops import pallas_kernels as _pk  # noqa: PLC0415
-
-        # Kernel selection (two-point-calibrated on v5e, see CLAUDE.md):
-        # - V <= 1024: the Pallas Kronecker kernel (both [V, V] matrices
-        #   VMEM-resident; ~32 us/slab, on par with XLA at this size);
-        # - V > 1024 with pruned i8 kron plans provided: the two int8
-        #   digit contractions over the pass-band support (round 4);
-        # - V > 1024 otherwise: the XLA separable formulation (~146 us
-        #   per 880x16^3 slab, near the ~100 us roofline).  A bf16
-        #   separable Pallas kernel measured 2x slower here and was
-        #   retired in round 3 (see ops/pallas_kernels.py docstring).
-        on_acc = _pk.has_pallas() and jax.default_backend() not in ("cpu",)
-        use_pallas = on_acc and vol % 128 == 0 and vol <= 1024
-        use_i8kron = (kron_plans is not None and not use_pallas
-                      and vol > 1024)
-        use_xla_sep = not use_pallas and not use_i8kron and vol > 1024
-    if fast:
+    if _fast_eligible(g, p):
         global LAST_FAST_PATH
 
         dims3 = (g.block.d, g.block.h, g.block.w)
@@ -413,13 +401,8 @@ def filter_blocks(
         tmin = p.threshold_min * 255.0 / norm2 if p.threshold_max else 0.0
         tmax = p.threshold_max * 255.0 / norm2 if p.threshold_max else 0.0
         flat = blocks.reshape(nb, -1)
-        if use_pallas:
-            LAST_FAST_PATH = "pallas-kron"
-            out = _pk.fused_block_filter(
-                flat, dims3, uf * bpm, threshold=(tmin, tmax),
-                post_filter=1.0 / uf,
-            )
-        elif use_i8kron:
+        kron_plans = plans[2] if len(plans) >= 3 else None
+        if kron_plans is not None:
             from dspfun_tpu.ops.int8mm import i8_contract  # noqa: PLC0415
 
             LAST_FAST_PATH = "i8-kron"
@@ -430,7 +413,7 @@ def filter_blocks(
                 a = jnp.abs(F)
                 F = jnp.where((a < tmin) | (a > tmax), 0.0, F)
             out = i8_contract(F, kp3.digits, kp3.scale, 1)
-        elif use_xla_sep:
+        elif vol > _XLA_KRON_MAX_VOL:
             LAST_FAST_PATH = "xla-sep"
             fwd_plans, inv_plans = plans[0], plans[1]
             b = blocks.astype(jnp.float32)
@@ -531,7 +514,7 @@ def filter_blocks(
         }
         if p.expr.stateful:
             # random()/while()/root()/taylor() evaluate per coefficient
-            # on the host in raster order — the TPU mapping of the
+            # on the host in raster order — the device mapping of the
             # reference's host-side av_expr loop (motion.c:670-681);
             # the grid round-trips through an ordered io_callback so
             # slot/prng state stays in program order across slabs.

@@ -3,7 +3,7 @@
 Jittable re-derivations of the scalar chains in reference spec/spec.c:63-139
 and spec/ispec.c:84-167.  The whole chain — 2-D DCT-II, uniform-range
 normalisation, gain, range max, log/linear scale, sign encode — is
-elementwise around two MXU matmuls, so XLA fuses it into a handful of
+elementwise around two matmuls, so XLA fuses it into a handful of
 kernels.
 
 Conventions (see SURVEY.md section 2.2):
@@ -32,7 +32,8 @@ import numpy as np
 from dspfun_tpu.core.precision import Precision, get_precision
 from dspfun_tpu.core.transforms import apply_plan, plan_axis, uniform_grid
 
-__all__ = ["SpecChainParams", "spec_forward", "spec_inverse", "compute_gain"]
+__all__ = ["SpecChainParams", "spec_forward", "spec_inverse", "compute_gain",
+           "whole_plans"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +66,8 @@ class SpecChainParams:
 def _whole_image_precision(precision: Precision | None, shape) -> Precision:
     """Whole-image transforms upgrade hilo -> exact at >=256 px: hilo
     only bounds the *basis* representation error, and per-pass
-    accumulation rounding dominates for long contractions (the round-1
-    1e-2 TPU floor at 512^2).  The exact mode's error-free contraction
+    accumulation rounding dominates for long contractions.  The exact
+    mode's error-free contraction
     (core/exact.py) restores the <=1e-5 BASELINE target at ~3x FLOPs —
     negligible for one whole-image transform per tool run."""
     p = precision or get_precision()
@@ -75,14 +76,26 @@ def _whole_image_precision(precision: Precision | None, shape) -> Precision:
     return p
 
 
-def _whole_dct(x: jnp.ndarray, kind: str, p: Precision) -> jnp.ndarray:
+def whole_plans(shape, kind: str, precision: Precision | None = None):
+    """(rows, cols) AxisPlans of the whole-image DCT ``kind`` over an
+    [H, W, ...] image, under the (auto-upgraded) policy.  Pass them to
+    jitted code as arguments (``plans=``): closed over, they become
+    program constants — ~350 MB for a 4K exact-mode pair, which takes
+    the GPU compiler minutes and is too large for the persistent
+    compile cache."""
+    p = _whole_image_precision(precision, shape)
+    return plan_axis(int(shape[0]), kind, p), plan_axis(int(shape[1]), kind, p)
+
+
+def _whole_dct(x: jnp.ndarray, kind: str, p: Precision,
+               plans=None) -> jnp.ndarray:
     """Whole-image separable DCT over [H, W, C] with the rank-1
     DC-split hints (mean on forward, zero0 on inverse — exact algebra,
     see core/transforms.apply_plan).  The i8 mode runs channel-first so
     both contractions hit the transpose-free int8 kernel forms."""
     h, w = x.shape[:2]
     split = "mean" if kind == "dct2" else "zero0"
-    ph, pw = plan_axis(h, kind, p), plan_axis(w, kind, p)
+    ph, pw = plans if plans is not None else whole_plans(x.shape, kind, p)
     if p.intermediate == "i8" and x.ndim == 3:
         z = jnp.moveaxis(x, -1, 0)
         z = apply_plan(z, ph, 1, p, split=split)
@@ -117,17 +130,19 @@ def spec_forward(
     x: jnp.ndarray,
     params: SpecChainParams,
     precision: Precision | None = None,
+    plans=None,
 ):
     """Image [H, W, C] in [0,1] -> (spectrogram [H,W,C] in [0,1], DC [C]).
 
     DC is the per-channel image mean (what spec embeds as the "DC"
-    property, reference spec/spec.c:66-68,145-148).
+    property, reference spec/spec.c:66-68,145-148).  ``plans`` is
+    :func:`whole_plans` ``(shape, "dct2")``, built here when omitted.
     """
     p = _whole_image_precision(precision, x.shape)
     h, w, d = x.shape
     gain = compute_gain(params, w, h)
 
-    F = _whole_dct(x, "dct2", p)
+    F = _whole_dct(x, "dct2", p, plans)
     grid = uniform_grid((h, w))[:, :, None]
     # uniform range +-1, then gain (spec.c:70-90); constants folded.
     f = F * jnp.asarray(grid * (gain / (4.0 * w * h)), dtype=F.dtype)
@@ -179,9 +194,11 @@ def spec_inverse(
     signmap: jnp.ndarray | None = None,
     preserve_dc: bool = False,
     precision: Precision | None = None,
+    plans=None,
 ):
     """Spectrogram [H,W,C] -> image [H,W,C]; exact inverse of
-    :func:`spec_forward` (reference spec/ispec.c:84-167).
+    :func:`spec_forward` (reference spec/ispec.c:84-167).  ``plans`` is
+    :func:`whole_plans` ``(shape, "dct3")``, built here when omitted.
 
     ``dc`` is the decoded "DC" property (required for dc/dcs ranges or
     preserve_dc unless a signmap supplies it).  ``signmap`` is the pixel
@@ -230,4 +247,4 @@ def spec_inverse(
             raise ValueError("DC required for preserve_dc")
         f = f.at[0, 0, :].set(jnp.asarray(dc, dtype=f.dtype))
 
-    return _whole_dct(f, "dct3", p)
+    return _whole_dct(f, "dct3", p, plans)

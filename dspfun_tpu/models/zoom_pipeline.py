@@ -3,7 +3,7 @@ scale/offset.
 
 The reference (zoom/zoom.c:361-375) evaluates the inverse DCT of a
 whole-image DCT-II spectrum at arbitrary real coordinates, one output
-column at a time with scalar loops.  TPU formulation: the separable
+column at a time with scalar loops.  Here the separable
 synthesis is exactly two dense matrix contractions
 
     out[j, i, z] = sum_v Yb[j, v] * sum_u C[v, u, z] * Xb[i, u] / (w*h)
@@ -81,8 +81,8 @@ def _synthesize(spectrum, plan_y, plan_x, precision=None,
     """Planned separable synthesis: ``plan_y``/``plan_x`` are AxisPlans
     of the continuous basis matrices (host float64 -> digit split, so
     accuracy is set by the contraction mode alone: the deep 4-digit i8
-    kernel lands ~2^-28 truncation / ~1e-7 relative on chip — the path
-    that holds BASELINE.md's <=1e-5 post-OETF budget on 4K stills).
+    contraction carries ~2^-28 truncation — the path that holds
+    BASELINE.md's <=1e-5 post-OETF budget on 4K stills).
     ``split="zero0"`` peels the dominant DC row/column analytically:
     basis column 0 is exactly 0.5 in every scaling convention
     (zoom/zoom.c:364,369)."""
@@ -130,7 +130,7 @@ def _tracing() -> bool:
 @functools.lru_cache(maxsize=4)
 def _zoom_plan_device(key):
     # device-resident once per plan: as host numpy jit args these would
-    # re-upload on every dispatch (CLAUDE.md environment note)
+    # re-upload on every dispatch
     return jax.device_put(_zoom_plan_host(*key))
 
 

@@ -3,7 +3,7 @@
 For a separable N-D DCT over a small block (volume V = bd*bh*bw up to a
 few thousand), the transform is the Kronecker product of the per-axis
 basis matrices: a single [V, V] matmul per block, batched over the
-block grid as [NB, V] @ [V, V] — exactly the layout the MXU wants
+block grid as [NB, V] @ [V, V] — one large matmul
 (contrast the reference's per-block FFTW plans, motion/motion.c:518-557).
 
 Better still, when the whole coefficient chain is *linear* (bandpass
@@ -13,7 +13,7 @@ precomputed [V, V] operator:
 
     A = K_inv @ diag(filter) @ K_fwd / (2^n * V)
 
-and the entire pipeline is a single MXU matmul with one HBM read and
+and the entire pipeline is a single matmul with one device-memory read and
 one write per block — the "north star" fused blockwise
 transform+filter+inverse.
 """
@@ -93,11 +93,9 @@ def bdiag_axis_plan(
 
     Applies an independent per-block [n, n] transform along a
     full-length axis as ONE dense matmul — no block gather, no
-    reshape/transpose, and a K=size contraction instead of K=n.  On
-    the MXU this is the fast formulation for blockwise chains whose
-    axis length is a multiple of the block size: measured 2,363 MP/s
-    vs 1,267 for the per-axis [n, n] form on the 512^2 8x8-blockwise
-    spec round trip (benchmarks/calib_r4_block.py, TPU v5e).  Fold any
+    reshape/transpose, and a K=size contraction instead of K=n — a
+    better matmul shape for blockwise chains whose axis length is a
+    multiple of the block size.  Fold any
     separable per-coefficient diagonal (e.g. spec's sqrt(2) grid) and
     scalar gains into ``block_matrix`` before calling.
     """

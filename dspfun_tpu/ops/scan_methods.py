@@ -2,7 +2,7 @@
 
 Re-derivations of reference scan/scan_methods.c.  Every method
 materialises host-side into a :class:`~dspfun_tpu.ops.scan_order.ScanOrder`
-(the reference streams closed-form methods index-by-index; on TPU the
+(the reference streams closed-form methods index-by-index; here the
 coordinate lists are precomputed metadata feeding batched device
 kernels, so everything goes through the precomputed form — the
 reference itself has the same canonicalisation in its `precomputed`

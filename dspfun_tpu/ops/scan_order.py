@@ -7,7 +7,7 @@ structure (scan/scan_precomputed.{h,c}) plus a vtable of closed-form
 methods (scan/scan_methods.c).  Here every method materialises into a
 single flat CSR-style structure host-side — the coordinate lists are
 tiny metadata next to the device compute, and a dense representation
-is what the batched TPU reconstruction kernels consume directly.
+is what the batched device reconstruction kernels consume directly.
 
 Serialization formats are the reference's two self-describing text
 formats (scan/scan_precomputed.c:51-153, documented

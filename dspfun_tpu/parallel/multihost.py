@@ -1,11 +1,12 @@
 """Multi-host (multi-process) execution helpers.
 
-Single-host multi-chip needs nothing beyond a Mesh; a TPU pod slice
-runs one process per host, and global arrays are assembled from
-process-local shards.  The reference has no counterpart (it is
-single-process, SURVEY.md section 2.8) — this is the framework's DCN
-layer: `jax.distributed` for rendezvous, ICI for the collectives
-inside shard_map.
+One process can drive every GPU of a host (its cards are joined all
+to all by NVLink) with nothing beyond a Mesh.  Several hosts run one
+process each, and global arrays are assembled from process-local
+shards.  The reference has no counterpart (it is single-process,
+SURVEY.md section 2.8) — this is the framework's multi-host layer:
+`jax.distributed` for rendezvous, the collectives inside shard_map
+over NVLink within a host and the network between hosts.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Join the multi-process runtime (no-op when single-process).
 
-    On Cloud TPU the arguments are auto-detected from the metadata
-    server; elsewhere pass coordinator "host:port" + ids explicitly.
+    GPU hosts detect nothing: pass the coordinator "host:port", the
+    process count and this process's id explicitly.
     """
     if num_processes in (None, 1) and coordinator is None:
         return
@@ -40,7 +41,7 @@ def global_mesh(space: int | None = None, time: int | None = None) -> Mesh:
     contiguous run of time indices): frame cubes stream host-by-host as
     time-contiguous slabs (:func:`stage_global_cube`), so the process
     boundary must fall on the slab axis.  Space-axis collectives then
-    stay intra-host (ICI); time-axis all_to_alls cross hosts (DCN).
+    stay within a host (NVLink); time-axis all_to_alls cross hosts.
     """
     devs = np.array(jax.devices())
     n = devs.size

@@ -93,16 +93,23 @@ def spec_forward_sharded(
     p = _whole_image_precision(precision, x.shape)
     h, w, c = (int(s) for s in x.shape)
     h0, w0 = true_shape if true_shape is not None else (h, w)
-    return _forward_fn(params, mesh, p, h, w, c, h0, w0)(x)
+    plans = _device_plans(mesh, p, "dct2", h0, h, w0, w)
+    return _forward_fn(params, mesh, p, h, w, c, h0, w0)(x, *plans)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_plans(mesh, p, kind, h0, h, w0, w):
+    """(rows, cols) padded plans replicated over the mesh once: jit
+    arguments, not program constants (see spec_pipeline.whole_plans)."""
+    plans = (_padded_plan(h0, h, kind, p), _padded_plan(w0, w, kind, p))
+    return jax.device_put(plans, NamedSharding(mesh, P()))
 
 
 @functools.lru_cache(maxsize=32)
 def _forward_fn(params, mesh, p, h, w, c, h0, w0):
     gain = compute_gain(params, w0, h0)
-    plan_h = _padded_plan(h0, h, "dct2", p)
-    plan_w = _padded_plan(w0, w, "dct2", p)
 
-    def local(shard):
+    def local(shard, plan_h, plan_w):
         F = apply_plan(shard, plan_w, 1, p)      # W local
         F = _swap(F, 1, 0)                       # -> [H, W/s, C]
         F = apply_plan(F, plan_h, 0, p)
@@ -142,7 +149,7 @@ def _forward_fn(params, mesh, p, h, w, c, h0, w0):
 
     fn = shard_map(
         local, mesh=mesh,
-        in_specs=P("space", None, None),
+        in_specs=(P("space", None, None), P(), P()),
         out_specs=(P(None, "space", None), P()),
         check_vma=False,
     )
@@ -168,16 +175,14 @@ def spec_inverse_sharded(
                      h0, w0)
     dc_arr = (jnp.zeros((c,), jnp.float32) if dc is None
               else jnp.asarray(dc, jnp.float32))
-    return fn(f, dc_arr)
+    return fn(f, dc_arr, *_device_plans(mesh, p, "dct3", h0, h, w0, w))
 
 
 @functools.lru_cache(maxsize=32)
 def _inverse_fn(params, mesh, p, h, w, c, dc_missing, preserve_dc, h0, w0):
     gain = compute_gain(params, w0, h0)
-    plan_h = _padded_plan(h0, h, "dct3", p)
-    plan_w = _padded_plan(w0, w, "dct3", p)
 
-    def local(shard, dc_arr):
+    def local(shard, dc_arr, plan_h, plan_w):
         si = jax.lax.axis_index("space")
         lw = shard.shape[1]
         xg = si * lw + jnp.arange(lw)
@@ -220,7 +225,7 @@ def _inverse_fn(params, mesh, p, h, w, c, dc_missing, preserve_dc, h0, w0):
 
     fn = shard_map(
         local, mesh=mesh,
-        in_specs=(P(None, "space", None), P()),
+        in_specs=(P(None, "space", None), P(), P(), P()),
         out_specs=P("space", None, None),
         check_vma=False,
     )

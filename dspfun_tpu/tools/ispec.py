@@ -12,7 +12,7 @@ import jax
 import numpy as np
 
 from dspfun_tpu.io import images
-from dspfun_tpu.models.spec_pipeline import spec_inverse
+from dspfun_tpu.models.spec_pipeline import spec_inverse, whole_plans
 from dspfun_tpu.ops.int8mm import ceil_to
 from dspfun_tpu.tools._speccli import SPEC_HELP, SpecOpts, resolve_io, spec_opt_proc
 
@@ -116,6 +116,7 @@ def main(argv: list[str] | None = None) -> int:
             dc=dc,
             signmap=signmap,
             preserve_dc=preserve_dc,
+            plans=jax.device_put(whole_plans(img.pixels.shape, "dct3")),
         )
     y = np.asarray(y)
 

@@ -1,6 +1,6 @@
 """scan — progressively reconstruct images using frequency-space scans.
 
-CLI-compatible rebuild of reference scan/scan.c on the batched TPU
+CLI-compatible rebuild of reference scan/scan.c on the batched device
 pipeline in dspfun_tpu.models.scan_pipeline.
 """
 

@@ -1,6 +1,6 @@
 """spec — generate invertible frequency spectrums for viewing and editing.
 
-CLI-compatible rebuild of reference spec/spec.c on the TPU pipeline in
+CLI-compatible rebuild of reference spec/spec.c on the device pipeline in
 dspfun_tpu.models.spec_pipeline.
 """
 
@@ -13,7 +13,7 @@ import jax
 import numpy as np
 
 from dspfun_tpu.io import images
-from dspfun_tpu.models.spec_pipeline import spec_forward
+from dspfun_tpu.models.spec_pipeline import spec_forward, whole_plans
 from dspfun_tpu.ops.int8mm import ceil_to
 from dspfun_tpu.tools._speccli import SPEC_HELP, SpecOpts, resolve_io, spec_opt_proc
 
@@ -69,7 +69,8 @@ def main(argv: list[str] | None = None) -> int:
         f = np.asarray(f)[:h0, :w0]
     else:
         fwd = jax.jit(spec_forward, static_argnums=(1,))
-        f, dc = fwd(x, opts.params)
+        plans = jax.device_put(whole_plans(x.shape, "dct2"))
+        f, dc = fwd(x, opts.params, plans=plans)
     f = np.asarray(f)
     dc = np.asarray(jax.device_get(dc), dtype=np.float64)
 

@@ -1,7 +1,7 @@
 """zoom — interpolate images with a cosine basis at arbitrary
 scales/offsets.
 
-CLI-compatible rebuild of reference zoom/zoom.c on the TPU synthesis in
+CLI-compatible rebuild of reference zoom/zoom.c on the device synthesis in
 dspfun_tpu.models.zoom_pipeline.
 """
 

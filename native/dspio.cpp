@@ -2,7 +2,7 @@
 //
 // The reference delegates its hot host-side loops to C libraries
 // (FFmpeg demux/decode, MagickWand pixel import; reference
-// include/ffapi.c).  This library is the TPU framework's native
+// include/ffapi.c).  This library is the framework's native
 // counterpart for the host paths that feed the device:
 //
 //  * y4m / fvid container demuxing: header parse + frame indexing +
@@ -419,6 +419,43 @@ void dspio_dither_fs(float* img, int64_t h, int64_t w) {
 // batched: [n, h, w]
 void dspio_dither_fs_batch(float* img, int64_t n, int64_t h, int64_t w) {
     for (int64_t i = 0; i < n; i++) dspio_dither_fs(img + i * h * w, h, w);
+}
+
+// PNG scanline unfiltering (None/Sub/Up/Average/Paeth, PNG spec 9.2):
+// raw is h rows of (1 filter byte + stride), out is h x stride.
+// Returns 0, or -1 on an unknown filter type.
+int dspio_png_unfilter(const uint8_t* raw, int64_t h, int64_t stride,
+                       int64_t bpp, uint8_t* out) {
+    for (int64_t y = 0; y < h; y++) {
+        const uint8_t* line = raw + y * (stride + 1);
+        const int ft = line[0];
+        const uint8_t* in = line + 1;
+        uint8_t* cur = out + y * stride;
+        const uint8_t* prev = y ? out + (y - 1) * stride : nullptr;
+        for (int64_t i = 0; i < stride; i++) {
+            const int a = i >= bpp ? cur[i - bpp] : 0;
+            const int b = prev ? prev[i] : 0;
+            const int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+            int pred;
+            switch (ft) {
+                case 0: pred = 0; break;
+                case 1: pred = a; break;
+                case 2: pred = b; break;
+                case 3: pred = (a + b) >> 1; break;
+                case 4: {
+                    const int p = a + b - c;
+                    const int pa = p > a ? p - a : a - p;
+                    const int pb = p > b ? p - b : b - p;
+                    const int pc = p > c ? p - c : c - p;
+                    pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                    break;
+                }
+                default: return -1;
+            }
+            cur[i] = (uint8_t)(in[i] + pred);
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

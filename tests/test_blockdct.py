@@ -44,7 +44,7 @@ def test_folded_operator_lowpass_3d():
 
 def test_bdiag_axis_plan_blockwise_dct():
     """I (x) D8 block-diagonal plan == per-block DCT along each planar
-    axis (the config-1 fast formulation, benchmarks/calib_r4_block.py)."""
+    axis (the suite config-1 formulation, ops/blockdct.bdiag_axis_plan)."""
     import jax
 
     from dspfun_tpu.core import basis as basis_mod

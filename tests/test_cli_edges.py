@@ -301,19 +301,19 @@ def test_per_tool_precision_defaults(monkeypatch):
     always win."""
     from dspfun_tpu.core import precision as pr
 
-    # table: zoom gets the accuracy-class contraction on TPU, the
+    # table: zoom gets the accuracy-class contraction on an accelerator, the
     # hilo default on CPU; motion/scan keep the F/L analogue
-    monkeypatch.setattr(pr, "_on_tpu", lambda: True)
+    monkeypatch.setattr(pr, "_on_accelerator", lambda: True)
     zp = pr.tool_default("zoom")
     assert zp.intermediate == "i8" and zp.tol is None
-    monkeypatch.setattr(pr, "_on_tpu", lambda: False)
+    monkeypatch.setattr(pr, "_on_accelerator", lambda: False)
     assert pr.tool_default("zoom").intermediate == "hilo"
     assert pr.tool_default("motion") == pr.Precision()
     assert pr.tool_default("scan").coeff_dtype == pr.Precision().coeff_dtype
 
     # apply: installs only when nothing explicit was chosen
     monkeypatch.setattr(pr, "_explicit", False)
-    monkeypatch.setattr(pr, "_on_tpu", lambda: True)
+    monkeypatch.setattr(pr, "_on_accelerator", lambda: True)
     pr.apply_tool_default("zoom")
     assert pr.get_precision().intermediate == "i8"
     pr.apply_tool_default("motion")

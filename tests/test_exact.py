@@ -1,6 +1,6 @@
 """core.exact: correctly-rounded f32 contraction (Ozaki digit scheme).
 
-The accuracy claims here are the foundation of the whole-image TPU
+The accuracy claims here are the foundation of the whole-image
 precision story (BASELINE.md <=1e-5 vs double FFTW), so the oracle is
 full float64 numpy.
 """

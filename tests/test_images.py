@@ -56,8 +56,8 @@ def test_srgb_roundtrip():
 
 def test_srgb_device_f32_accuracy():
     """The jnp transfer functions decompose pow into sqrt/cbrt + Newton
-    (io/color.py) so device OETF accuracy is ~2 ulp, not the ~5e-6 of
-    TPU's f32 pow.  Pin the f32 error bound against the f64 host path
+    (io/color.py) so device OETF accuracy is ~2 ulp, not the several
+    ulp an approximate device f32 pow can carry.  Pin the f32 error bound against the f64 host path
     over the full domain including thresholds, 0, and >1 overshoot."""
     import jax
     import jax.numpy as jnp

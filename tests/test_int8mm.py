@@ -1,10 +1,8 @@
-"""ops.int8mm: int8 Ozaki digit contraction (Pallas, interpret mode on
-CPU; the TPU engagement/throughput numbers live in CLAUDE.md and the
-checked-in benchmark artifacts).
+"""ops.int8mm: int8 Ozaki digit contraction — the plain XLA form and
+the GPU kernel in the Pallas interpreter, both against float64 numpy.
 
-Oracle is float64 numpy; the digit scheme's only error is the ~2^-22
-per-slice representation truncation, so everything here asserts
-~1e-6-class accuracy.
+The digit scheme's only error is the ~2^-22 per-slice representation
+truncation, so everything here asserts ~1e-6-class accuracy.
 """
 
 import numpy as np
@@ -24,25 +22,30 @@ def test_split_matrix_digits_reconstruct():
     m = rng.standard_normal((24, 200)) * 5.0
     digits, scale = split_matrix_i8(m)
     assert digits.dtype == np.int8
-    assert digits.shape[2] % 128 == 0          # K lane-padded
+    assert digits.shape == (3, 24, 200)        # K unpadded
     assert np.max(np.abs(digits.astype(np.int32))) <= 65
-    rec = np.zeros((24, digits.shape[2]))
+    rec = np.zeros((24, 200))
     for i in range(digits.shape[0]):
         rec += digits[i].astype(np.float64) * 2.0 ** (-B_I8 * (i + 1))
-    rec = rec[:, :200] * scale
+    rec = rec * scale
     # ~20 bits below each row max (the ceil+1 half-range scaling can
     # cost up to 2 bits vs the ideal normalisation)
     err = np.max(np.abs(rec - m) / np.max(np.abs(m), axis=1, keepdims=True))
     assert err <= 2.0**-20
 
 
+@pytest.mark.parametrize("interpret", [False, True],
+                         ids=["xla", "kernel-interpret"])
 @pytest.mark.parametrize("axis,shape", [
     (0, (160, 70)),          # left form
     (1, (3, 160, 70)),       # batched left form ([C, H, W] case)
     (2, (3, 50, 160)),       # right form
     (1, (2, 160, 5, 7)),     # general middle axis (moveaxis fallback)
 ])
-def test_i8_contract_forms(axis, shape):
+def test_i8_contract_forms(axis, shape, interpret):
+    """Both product forms — the plain XLA group dots and the GPU kernel
+    run by the Pallas interpreter (padding to its tiles included) —
+    match float64 in every layout."""
     k = shape[axis]
     rng = np.random.default_rng(1)
     m = basis_mod.dct2_matrix(k)
@@ -50,7 +53,7 @@ def test_i8_contract_forms(axis, shape):
     digits, scale = split_matrix_i8(m)
     y = np.asarray(jax.jit(
         lambda xx: i8_contract(xx, jnp.asarray(digits), jnp.asarray(scale),
-                               axis))(x), np.float64)
+                               axis, interpret=interpret))(x), np.float64)
     ref = np.moveaxis(
         np.tensordot(m, x.astype(np.float64), axes=[[1], [axis]]), 0, axis)
     rel = np.max(np.abs(y - ref)) / np.max(np.abs(ref))
@@ -72,13 +75,10 @@ def test_i8_apply_plan_roundtrip():
 
 def test_i8_exactness_and_capacity_guards():
     """K bounds follow the int32 group sums (3 dots in the 3-digit
-    kernel's heaviest group, 4 in the deep kernel's — NOT the single-
-    dot 2^19), apply to BOTH entry points, and VMEM-infeasible shapes
-    raise cleanly instead of Mosaic's undiagnosable compile failure
-    (round-4 review)."""
-    from dspfun_tpu.ops.int8mm import (
-        _kmax, _tiles, i8_contract_rt, i8_feasible,
-    )
+    form's heaviest group, 4 in the deep form's — NOT the single-dot
+    2^19), apply to BOTH entry points, and the planner probe reports
+    the same bound."""
+    from dspfun_tpu.ops.int8mm import _kmax, i8_contract_rt, i8_feasible
 
     assert _kmax(3) == ((1 << 31) - 1) // (3 << 12)
     assert _kmax(4) == (1 << 17) - 1
@@ -89,30 +89,28 @@ def test_i8_exactness_and_capacity_guards():
     with pytest.raises(ValueError, match="exact-int32"):
         i8_contract_rt(big, jnp.ones((8, big.shape[1]), jnp.float32), 1)
 
-    # 8K-class K: the 3-digit kernel falls to minimum 128x128 tiles
-    # (the 256-wide operand tile alone would blow the ~16 MB VMEM
-    # budget); the deep kernel genuinely does not fit and must say so
-    assert _tiles(7680, 7680, 3)[:2] == (128, 128)
-    with pytest.raises(ValueError, match="VMEM"):
-        _tiles(7680, 7680, 4)
-    assert i8_feasible(7680, 7680, 3)
-    assert not i8_feasible(7680, 7680, 4)
-    # the calibrated benchmark shapes keep their round-4 tile choices
-    assert _tiles(3840, 3840, 3) == (256, 256, 3840)
-    assert _tiles(3840, 3840, 4)[:2] == (128, 256)
+    # the probe is exactly the accumulation bound, per digit count:
+    # 8K image axes fit both forms; past _kmax neither does
+    assert i8_feasible(7680, 3) and i8_feasible(7680, 4)
+    assert i8_feasible(_kmax(4), 4) and not i8_feasible(_kmax(4) + 1, 4)
+    assert i8_feasible(_kmax(3), 3) and not i8_feasible(_kmax(3) + 1, 3)
+    assert _kmax(4) < _kmax(3)
 
 
 def test_i8_plan_falls_back_to_exact_when_infeasible():
-    """plan_matrix(i8, deep) on an 8K-class contraction silently falls
-    back to the bf16-digit exact mode (same accuracy class, no kernel
-    K/VMEM limits) instead of raising at trace time."""
+    """plan_matrix(i8, deep) on a contraction past the deep form's
+    exact-int32 bound silently falls back to the bf16-digit exact mode
+    (same accuracy class, no K limit) instead of raising at trace
+    time."""
     from dspfun_tpu.core.transforms import plan_matrix
+    from dspfun_tpu.ops.int8mm import _kmax
 
     rng = np.random.default_rng(5)
-    m = rng.random((64, 7680)) - 0.5
+    k = _kmax(4) + 1
+    m = rng.random((8, k)) - 0.5
     plan = plan_matrix(m, Precision(intermediate="i8", tol=1e-6))
     assert np.asarray(plan.digits).dtype == jnp.bfloat16  # exact mode
-    x = rng.random((7680, 4)).astype(np.float32)
+    x = rng.random((k, 2)).astype(np.float32)
     y = np.asarray(apply_plan(jnp.asarray(x), plan, 0,
                               Precision(intermediate="i8", tol=1e-6)))
     ref = m @ x.astype(np.float64)
@@ -202,7 +200,7 @@ def test_i8_zero_and_constant_slices():
 
 
 def test_i8_inside_shard_map_volume_path():
-    """The i8 Pallas kernels run inside shard_map (per-device local
+    """The i8 contraction runs inside shard_map (per-device local
     shards): the motion whole-volume path under DSPFUN_PRECISION=i8
     matches the default-precision single-device chain to pel noise."""
     from dspfun_tpu.core.precision import set_precision
@@ -235,11 +233,10 @@ def test_i8_inside_shard_map_volume_path():
     assert np.max(np.abs(out - ref)) < 0.1
 
 
-def test_i8_fused_chain_engages_on_tpu():
-    """TPU-gated: the bench configuration's i8 kernels compile and run
-    on real hardware at <=1e-5 vs the f32 HIGHEST chain."""
-    if jax.default_backend() == "cpu":
-        pytest.skip("needs a TPU backend")
+@pytest.mark.gpu
+def test_i8_fused_chain_on_gpu(gpu):
+    """The bench configuration's i8 contractions compile and run on the
+    card at <=1e-5 vs the float64 chain."""
     import scipy.fft
 
     from dspfun_tpu.models.fused import filter_plans, fused_filter_2d, lowpass_mask
@@ -259,11 +256,10 @@ def test_i8_fused_chain_engages_on_tpu():
     assert np.max(np.abs(y - ref)) <= 1e-5
 
 
-def test_i8_deep_kernel_engages_on_tpu():
-    """TPU-gated: the 4-digit deep kernel compiles on real Mosaic and
-    lands ~1e-7-class relative (round-4 on-chip: 7.1e-8)."""
-    if jax.default_backend() == "cpu":
-        pytest.skip("needs a TPU backend")
+@pytest.mark.gpu
+def test_i8_deep_form_on_gpu(gpu):
+    """The 4-digit deep contraction compiles on the card and lands
+    ~1e-7-class relative."""
     rng = np.random.default_rng(0)
     K, M = 1920, 1024
     m = np.cos(np.pi * (np.arange(M)[:, None] / 4.0 + 0.5)
@@ -276,12 +272,10 @@ def test_i8_deep_kernel_engages_on_tpu():
     assert np.max(np.abs(y - ref)) / np.max(np.abs(ref)) <= 3e-7
 
 
-def test_i8_kron_motion_engages_on_tpu():
-    """TPU-gated: the support-pruned i8-kron motion fast path compiles
-    and matches the separable formulation (round-4 on-chip: 162.6 us vs
-    287 us per 880-block slab)."""
-    if jax.default_backend() == "cpu":
-        pytest.skip("needs a TPU backend")
+@pytest.mark.gpu
+def test_i8_kron_motion_on_gpu(gpu):
+    """The support-pruned i8-kron motion fast path engages on the card
+    and matches the separable formulation."""
     from dspfun_tpu.models import motion_pipeline as mp
 
     rng = np.random.default_rng(4)

@@ -266,15 +266,13 @@ def test_maybe_kron_plans_gates():
     # quant disables the fused fast path entirely
     assert mp.maybe_kron_plans(
         g, mp.MotionParams(damp=0.0, quant=1.0), allow_cpu=True) is None
-    # small volume: the Pallas kron kernel owns it
+    # small volume: the dense xla-kron form owns it
     g2 = mp.plan_geometry(16, 16, 4, 1, block=mp.Dims(8, 8, 4),
                           bp_end=mp.Dims(4, 4, 2))[0]
     assert mp.maybe_kron_plans(g2, ok, allow_cpu=True) is None
-    # volume past the int8 kernels' K bound / VMEM budget: must return
-    # None (plan_matrix would fall back to bf16 digits, which the
-    # i8-kron branch cannot consume — round-4 review, confirmed crash
-    # at 24^3 blocks) — and the probe must fire BEFORE the [V, V] host
-    # kron build
+    # volume past the host [V, V] Kronecker build bound: must return
+    # None (24^3 blocks would need a 1.5 GB float64 matrix) — and the
+    # gate must fire BEFORE the host kron build
     g3 = mp.plan_geometry(48, 48, 24, 1, block=mp.Dims(24, 24, 24),
                           bp_end=mp.Dims(6, 6, 6))[0]
     assert mp.maybe_kron_plans(g3, ok, allow_cpu=True) is None

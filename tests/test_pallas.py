@@ -1,93 +1,101 @@
-"""Fused blockwise Pallas kernel tests (interpret mode on CPU)."""
+"""Motion's fused blockwise fast path: the xla-kron form (the whole 3-D
+DCT folded into two dense [V, V] matmuls) against a float64 oracle, and
+the separable form against the general chain."""
 
 import numpy as np
 import pytest
 import scipy.fft
 
-from dspfun_tpu.ops import pallas_kernels as pk
+import jax.numpy as jnp
 
-pytestmark = pytest.mark.skipif(not pk.has_pallas(), reason="no pallas")
+from dspfun_tpu.models import motion_pipeline as mp
 
 
-def oracle(blocks, dims, filt, quant=0.0, threshold=(0.0, 0.0)):
+def _run_kron(blocks, dims, params, bp_end=None):
+    """filter_blocks over [NB, bd, bh, bw] blocks of ``dims`` (V <= the
+    xla-kron bound), asserting the xla-kron form ran."""
     nb = blocks.shape[0]
-    xb = blocks.reshape(nb, *dims).astype(np.float64)
-    axes = tuple(range(1, len(dims) + 1))
-    F = scipy.fft.dctn(xb, axes=axes, type=2) * np.asarray(filt)[None]
-    if threshold[1]:
-        a = np.abs(F)
-        F = np.where((a < threshold[0]) | (a > threshold[1]), 0.0, F)
-    if quant:
-        F = np.round(F / quant) * quant
-    out = scipy.fft.dctn(F, axes=axes, type=3) / (2 ** len(dims) * np.prod(dims))
-    return out.reshape(nb, -1)
+    bd, bh, bw = dims
+    g = mp.plan_geometry(bw, bh * nb, bd, 1, block=mp.Dims(bw, bh, bd),
+                         bp_end=bp_end or mp.Dims())[0]
+    assert g.block.volume() <= mp._XLA_KRON_MAX_VOL
+    bc = (jnp.zeros(nb, jnp.int32), jnp.zeros(nb, jnp.int32))
+    mp.LAST_FAST_PATH = None
+    out, _ = mp.filter_blocks(jnp.asarray(blocks), mp.make_plans(g), bc,
+                              jnp.asarray(0), geom=g, params=params,
+                              plane_index=0, nplanes=1)
+    assert mp.LAST_FAST_PATH == "xla-kron", mp.LAST_FAST_PATH
+    return np.asarray(out, np.float64)
 
 
-def test_fused_identity():
+def _oracle(blocks, mult, tmin=0.0, tmax=0.0):
+    """float64 DCT-II -> multiplier -> threshold on the uniform-range
+    coefficients (reference motion.c:641-647,721-728) -> DCT-III."""
+    axes = (1, 2, 3)
+    F = scipy.fft.dctn(blocks.astype(np.float64), axes=axes, type=2) * mult
+    if tmax:
+        shape = blocks.shape[1:]
+        uf = 2.0 * np.sqrt(2.0) * np.ones(shape)
+        for ax, n in enumerate(shape):
+            idx = [None] * 3
+            idx[ax] = slice(None)
+            uf = uf / np.where(np.arange(n) > 0, 1.0, np.sqrt(2.0))[tuple(idx)]
+        a = np.abs(F * uf)
+        F = np.where((a < tmin) | (a > tmax), 0.0, F)
+    vol = np.prod(blocks.shape[1:])
+    return scipy.fft.dctn(F, axes=axes, type=3) / (8.0 * vol)
+
+
+def test_kron_identity():
     rng = np.random.default_rng(0)
-    dims = (2, 8, 8)
-    x = rng.random((10, 128)).astype(np.float32)
-    y = np.asarray(pk.fused_block_filter(x, dims, np.ones(dims),
-                                         row_tile=8, interpret=True))
-    np.testing.assert_allclose(y, x, atol=1e-4)
+    x = rng.random((10, 2, 8, 8)).astype(np.float32) * 255
+    y = _run_kron(x, (2, 8, 8), mp.MotionParams(damp=0.0))
+    np.testing.assert_allclose(y, x, atol=1e-3)
 
 
-def test_fused_lowpass_matches_oracle():
+def test_kron_lowpass_matches_oracle():
     rng = np.random.default_rng(1)
-    dims = (16, 8)
-    filt = np.zeros(dims)
-    filt[:4, :4] = 1.5
-    x = rng.random((20, 128)).astype(np.float32) * 255
-    y = np.asarray(pk.fused_block_filter(x, dims, filt,
-                                         row_tile=8, interpret=True))
-    np.testing.assert_allclose(y, oracle(x, dims, filt), atol=1e-2)
+    dims = (4, 16, 8)
+    x = rng.random((20, *dims)).astype(np.float32) * 255
+    y = _run_kron(x, dims, mp.MotionParams(boost=1.5, damp=0.0),
+                  bp_end=mp.Dims(4, 4, 2))
+    mult = np.zeros(dims)
+    mult[:2, :4, :4] = 1.5
+    np.testing.assert_allclose(y, _oracle(x, mult), atol=1e-2)
 
 
-def test_fused_quant_threshold():
+def test_kron_threshold_matches_oracle():
     rng = np.random.default_rng(2)
-    dims = (16, 8)
-    filt = np.ones(dims)
-    x = rng.random((9, 128)).astype(np.float32) * 255
-    y = np.asarray(pk.fused_block_filter(
-        x, dims, filt, quant=50.0, threshold=(10.0, 1e5),
-        row_tile=8, interpret=True,
-    ))
-    ref = oracle(x, dims, filt, quant=50.0, threshold=(10.0, 1e5))
+    dims = (4, 16, 8)
+    x = rng.random((9, *dims)).astype(np.float32) * 255
+    params = mp.MotionParams(damp=0.0, threshold_min=1e-3,
+                             threshold_max=0.5)
+    y = _run_kron(x, dims, params)
+    norm2 = 1.0 / (np.prod(dims) * 8.0)
+    ref = _oracle(x, np.ones(dims), tmin=1e-3 * 255.0 / norm2,
+                  tmax=0.5 * 255.0 / norm2)
     np.testing.assert_allclose(y, ref, atol=1e-2)
+    # the threshold really zeroed coefficients
+    assert np.max(np.abs(ref - x)) > 1.0
 
 
-def test_pad_to_row_tile():
+def test_kron_block_count_not_a_tile_multiple():
     rng = np.random.default_rng(3)
-    dims = (1, 128)
-    x = rng.random((3, 128)).astype(np.float32)
-    y = np.asarray(pk.fused_block_filter(x, dims, np.ones(dims),
-                                         row_tile=8, interpret=True))
-    assert y.shape == (3, 128)
+    x = rng.random((3, 1, 8, 16)).astype(np.float32)
+    y = _run_kron(x, (1, 8, 16), mp.MotionParams(damp=0.0))
+    assert y.shape == (3, 1, 8, 16)
     np.testing.assert_allclose(y, x, atol=1e-4)
-
-
-# ---------------------------------------------------------------------------
-# Retired in round 3: the bf16 separable kernel (V > 1024) measured 2x
-# slower than the XLA separable formulation on the calibrated motion
-# config and was deleted (VERDICT r2 next item 3); the fast-path gate
-# test below still covers the V=4096 config through xla-sep/xla-kron.
-# ---------------------------------------------------------------------------
 
 
 def test_filter_blocks_sep_fast_path_matches_slow():
     """The 16x16x16 BASELINE motion config must produce the same result
-    through the fast path gate (XLA kron on CPU at V=4096) as through
-    the general chain."""
+    through the fast path gate (xla-sep at V=4096) as through the
+    general chain."""
     import dataclasses
-
-    import jax.numpy as jnp
-
-    from dspfun_tpu.models import motion_pipeline as mp
 
     g = mp.plan_geometry(32, 32, 16, 1, block=mp.Dims(16, 16, 16),
                          bp_end=mp.Dims(8, 8, 4))[0]
     fastp = mp.MotionParams(boost=1.25, damp=0.0)
-    slowp = dataclasses.replace(fastp, preserve_dc="dc")  # forces slow
     plans = mp.make_plans(g)
     rng = np.random.default_rng(7)
     frames = (rng.random((16, 32, 32)) * 255).astype(np.float32)
@@ -97,8 +105,8 @@ def test_filter_blocks_sep_fast_path_matches_slow():
     fast_out, _ = mp.filter_blocks(blocks, plans, bc, jnp.asarray(0),
                                    geom=g, params=fastp,
                                    plane_index=0, nplanes=1)
-    # preserve_dc with no dc-stop/boost!=1... use bandpass-only slow
-    # comparison via expr identity instead
+    assert mp.LAST_FAST_PATH == "xla-sep"
+    # an identity expression forces the general chain
     from dspfun_tpu.core.expr import parse_expr
 
     expr = parse_expr("c", ("c", "x", "y", "z", "i", "width", "height",
@@ -112,20 +120,10 @@ def test_filter_blocks_sep_fast_path_matches_slow():
                                atol=2e-2, rtol=1e-5)
 
 
-def test_baseline_motion_config_engages_fused_path_on_tpu():
-    """VERDICT item 7: the BASELINE motion config (16x16x16 blocks,
-    V=4096, beyond the round-1 V<=1024 cap) runs a fused fast path on a
-    real TPU — the two-point-calibrated default is the XLA separable
-    formulation (146 us/slab, near the ~100 us roofline; the 2x-slower
-    bf16 separable Pallas kernel was retired in round 3)."""
-    import jax
-
-    if jax.default_backend() == "cpu":
-        pytest.skip("needs a TPU backend")
-    import jax.numpy as jnp
-
-    from dspfun_tpu.models import motion_pipeline as mp
-
+@pytest.mark.gpu
+def test_baseline_motion_config_engages_fused_path_on_gpu(gpu):
+    """The BASELINE motion config (16x16x16 blocks, V=4096) without
+    kron plans runs the separable fused fast path on the card."""
     g = mp.plan_geometry(64, 48, 16, 1, block=mp.Dims(16, 16, 16),
                          bp_end=mp.Dims(8, 8, 4))[0]
     params = mp.MotionParams(boost=1.25, damp=0.0)

@@ -19,7 +19,7 @@ def _env():
 
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{REPO}:{env.get('PYTHONPATH', '')}"
-    env["DSPFUN_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     return env
 
 

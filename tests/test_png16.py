@@ -1,4 +1,5 @@
-"""16-bit PNG codec + the high-depth spec editing workflow it enables."""
+"""Native 8/16-bit PNG codec + the high-depth spec editing workflow it
+enables."""
 
 import struct
 import zlib
@@ -7,17 +8,17 @@ import numpy as np
 import pytest
 
 from dspfun_tpu.io import images
-from dspfun_tpu.io.png16 import read_png16, sniff_png16, write_png16
+from dspfun_tpu.io.png16 import read_png, sniff_png, write_png
 
 
 def test_roundtrip_rgb16(tmp_path):
     rng = np.random.default_rng(0)
     arr = rng.integers(0, 65536, (13, 7, 3)).astype(np.uint16)
     p = str(tmp_path / "x.png")
-    write_png16(p, arr, {"DC": "ABCD", "note": "hello"})
+    write_png(p, arr, {"DC": "ABCD", "note": "hello"})
     data = open(p, "rb").read()
-    assert sniff_png16(data)
-    got, props = read_png16(data)
+    assert sniff_png(data)
+    got, props = read_png(data)
     np.testing.assert_array_equal(got, arr)
     assert props == {"DC": "ABCD", "note": "hello"}
 
@@ -26,8 +27,8 @@ def test_roundtrip_rgba16(tmp_path):
     rng = np.random.default_rng(1)
     arr = rng.integers(0, 65536, (5, 9, 4)).astype(np.uint16)
     p = str(tmp_path / "x.png")
-    write_png16(p, arr)
-    got, _ = read_png16(open(p, "rb").read())
+    write_png(p, arr)
+    got, _ = read_png(open(p, "rb").read())
     np.testing.assert_array_equal(got, arr)
 
 
@@ -84,7 +85,7 @@ def test_decode_foreign_filters(filters):
     rng = np.random.default_rng(42)
     arr = rng.integers(0, 65536, (4, 6, 3)).astype(np.uint16)
     data = _encode_with_filters(arr, filters)
-    got, _ = read_png16(data)
+    got, _ = read_png(data)
     np.testing.assert_array_equal(got, arr)
 
 
@@ -115,7 +116,7 @@ def test_spec_ispec_16bit_cli_roundtrip(tmp_path):
     spec_png = str(tmp_path / "spec.png")
     back = str(tmp_path / "back.png")
     assert spec_tool.main(["-t", "flat", "-G", "1000", src, spec_png]) == 0
-    assert sniff_png16(open(spec_png, "rb").read())  # 16-bit spectrum
+    assert sniff_png(open(spec_png, "rb").read())  # 16-bit spectrum
     assert ispec_tool.main(["-t", "flat", "-G", "1000", spec_png, back]) == 0
 
     got = images.read_image(back).pixels
@@ -131,3 +132,88 @@ def test_spec_ispec_16bit_cli_roundtrip(tmp_path):
     q8 = np.clip(np.rint(got * 255.0), 0, 255)
     rmse8 = float(np.sqrt(np.mean((q8 / 255.0 - orig / 255.0) ** 2)))
     assert rmse8 <= 1e-4, rmse8
+
+
+@pytest.mark.parametrize("nch", [1, 2, 3, 4])
+def test_roundtrip_8bit_with_dc_property(tmp_path, nch):
+    """8-bit gray/gray+alpha/RGB/RGBA round trip, tEXt "DC" included."""
+    rng = np.random.default_rng(10 + nch)
+    arr = rng.integers(0, 256, (11, 6, nch)).astype(np.uint8)
+    p = str(tmp_path / "x.png")
+    write_png(p, arr, {"DC": "ABCDEFGH"})
+    data = open(p, "rb").read()
+    assert sniff_png(data)
+    assert data[24] == 8                       # IHDR bit depth
+    got, props = read_png(data)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, arr)
+    assert props == {"DC": "ABCDEFGH"}
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+def test_decode_foreign_filters_8bit(monkeypatch, native):
+    """Every filter type on 8-bit RGB rows decodes identically through
+    the native unfilter and the Python fallback."""
+    from dspfun_tpu.io import native as native_mod
+    from dspfun_tpu.io import png16
+
+    if native and not native_mod.available():
+        pytest.skip("native dspio not built")
+    if not native:
+        monkeypatch.setattr(native_mod, "available", lambda: False)
+    rng = np.random.default_rng(43)
+    h, w, c = 5, 7, 3
+    arr = rng.integers(0, 256, (h, w, c)).astype(np.uint8)
+    filters = [1, 2, 3, 4, 0]
+    stride, bpp = w * c, c
+    rows = arr.reshape(h, stride).astype(np.int32)
+    raw = b""
+    for y, ft in enumerate(filters):
+        cur = rows[y]
+        prev = rows[y - 1] if y else np.zeros(stride, np.int32)
+        enc = np.zeros(stride, np.int32)
+        for i in range(stride):
+            a = cur[i - bpp] if i >= bpp else 0
+            b = prev[i]
+            cc = prev[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - cc), abs(a - cc), abs(a + b - 2 * cc)
+            pred = [0, a, b, (a + b) >> 1,
+                    a if pa <= pb and pa <= pc else (b if pb <= pc else cc)][ft]
+            enc[i] = (cur[i] - pred) & 0xFF
+        raw += bytes([ft]) + enc.astype(np.uint8).tobytes()
+
+    def chunk(t, d):
+        return (struct.pack(">I", len(d)) + t + d
+                + struct.pack(">I", zlib.crc32(t + d) & 0xFFFFFFFF))
+
+    data = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    got, _ = png16.read_png(data)
+    np.testing.assert_array_equal(got, arr)
+
+
+def test_png_stills_need_no_pillow(tmp_path, monkeypatch):
+    """spec/ispec on an 8-bit PNG run with Pillow unimportable."""
+    import builtins
+
+    from dspfun_tpu.tools import ispec as ispec_tool
+    from dspfun_tpu.tools import spec as spec_tool
+
+    rng = np.random.default_rng(5)
+    orig = rng.integers(0, 256, (16, 24, 3)).astype(np.uint8)
+    src = str(tmp_path / "src.png")
+    write_png(src, orig)
+    real_import = builtins.__import__
+
+    def no_pil(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("Pillow hidden")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    spec_png, back = str(tmp_path / "s.png"), str(tmp_path / "b.png")
+    assert spec_tool.main(["-t", "flat", "-G", "1000", src, spec_png]) == 0
+    assert ispec_tool.main(["-t", "flat", "-G", "1000", spec_png, back]) == 0
+    got = images.read_image(back).pixels
+    assert np.max(np.abs(got - orig / 255.0)) <= 2.0 / 255.0

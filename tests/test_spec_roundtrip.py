@@ -13,8 +13,8 @@ from dspfun_tpu.models.spec_pipeline import (
 )
 
 # The reference spec tool defaults to COEFF_PRECISION=D (double storage,
-# include/precision.h:50-57); its TPU analogue here is the f64 policy on
-# the CPU oracle backend.
+# include/precision.h:50-57); its analogue here is the f64 policy on the
+# CPU oracle backend.
 P64 = Precision(coeff="float64", intermediate="f64")
 
 
@@ -38,7 +38,7 @@ def test_flat_template_roundtrip(img):
 
 
 def test_flat_roundtrip_f32_storage(img):
-    """With f32 coefficient storage (the TPU default; the reference's
+    """With f32 coefficient storage (the accelerator default; the reference's
     COEFF_PRECISION=F build), the IDCT coherently sums per-coefficient
     quantisation noise — bound scales like eps32 * w * h."""
     p = SpecChainParams.template("flat", gain=1.0)

@@ -163,3 +163,39 @@ def test_zoom_resume_appends(tmp_path):
     assert zoom_tool.main([*args, "--resume-file", state, src, part]) == 0
     got = frames_of(part)
     np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+def test_cache_dir_follows_env_var(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR set: the helper names no directory of
+    its own (JAX reads the variable), even for a wisdom-file path, and
+    enabling leaves JAX's configured directory untouched."""
+    import jax
+
+    from dspfun_tpu.utils import cache
+
+    env_dir = str(tmp_path / "envcache")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    assert cache.cache_dir() is None
+    assert cache.cache_dir(str(tmp_path / "wisdom.txt")) is None
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setattr(cache, "_enabled", None)
+    try:
+        assert cache.enable_compilation_cache() == env_dir
+        assert jax.config.jax_compilation_cache_dir == before
+    finally:
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def test_cache_dir_without_env_var(tmp_path, monkeypatch):
+    """No JAX_COMPILATION_CACHE_DIR: the fixed <repo>/.dspfun-xla-cache,
+    or beside a wisdom file the caller names."""
+    import os
+
+    from dspfun_tpu.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    assert cache.cache_dir() == os.path.join(repo, ".dspfun-xla-cache")
+    wisdom = str(tmp_path / "wisdom.txt")
+    assert cache.cache_dir(wisdom) == str(tmp_path / ".dspfun-xla-cache")
+    assert cache.cache_dir(str(tmp_path)) == str(tmp_path)
